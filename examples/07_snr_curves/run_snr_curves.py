@@ -7,7 +7,7 @@ SNR values, thermal noise is superimposed, and the 4-channel deep phased
 array is run on each realization; the trigger fraction vs SNR is the SNR
 curve (SNR = Vpp / (2 Vrms), as in the reference).
 
-TPU-first design: the whole study — n_snr x n_trials noise realizations x
+Batch-first design: the whole study — n_snr x n_trials noise realizations x
 11 beams — is ONE vmapped jitted batch, instead of the reference's
 per-event per-SNR Python loop.
 

@@ -13,10 +13,6 @@ import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-import jax
-if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

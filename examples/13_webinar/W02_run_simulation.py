@@ -3,7 +3,7 @@
 
 Where the reference subclasses ``simulation.simulation`` and overrides
 ``_detector_simulation_filter_amp`` / ``_detector_simulation_trigger``,
-the TPU-native framework expresses the same two hooks declaratively: the
+this framework expresses the same two hooks declaratively: the
 filter chain is a list of `FilterStage` and the trigger(s) a list of
 `TriggerSpec` — everything the hooks did per event now compiles into ONE
 fused XLA program over the whole batch.

@@ -1,7 +1,7 @@
-"""nuradiomc_tpu — a TPU-native Monte-Carlo framework for in-ice radio
+"""nuradiomc_tpu — a batch-first JAX Monte-Carlo framework for in-ice radio
 neutrino detectors.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of
+A ground-up JAX/XLA re-design with the capabilities of
 nu-radio/NuRadioMC + NuRadioReco: neutrino event generation, Askaryan signal
 generation, batched analytic in-ice ray tracing, detector response, triggers,
 and effective-volume bookkeeping — all as struct-of-arrays batches over

@@ -2,7 +2,7 @@
 
 The reference wraps a tinydb JSON database in accessor classes
 (NuRadioReco/detector/detector_base.py:131-1082, generic_detector.py:15-565
-for reference-station defaulting). The TPU build parses the same JSON schema
+for reference-station defaulting). This build parses the same JSON schema
 once on the host into flat numpy arrays per station — the form every device
 kernel consumes. Field conventions follow detector_base.py: positions in
 meters (get_relative_position:557-582), orientations in degrees in the JSON

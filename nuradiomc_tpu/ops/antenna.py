@@ -9,7 +9,7 @@ Re-design of the reference antenna pattern machinery
 * analytic models ``analytic_LPDA`` / ``analytic_VPol`` / ``analytic_HPol``
   (antennapattern.py:1580-1770) used when tabulated models are unavailable.
 
-TPU-first structure: for the analytic models the response factorizes as
+Batch-first structure: for the analytic models the response factorizes as
 
     VEL_onsky(f, dir) = T_k(f) * (M(dir) @ [0, d_theta(dir), d_phi(dir)])
 
@@ -23,11 +23,17 @@ frequency bin instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from nuradiomc_tpu.utils import geometry, units
+
+# the direction rotations are 3x3 products of unit vectors: cheap, and a
+# TF32 pass would leave ~1e-3 relative error in the mixing factors
+_matmul = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 KIND_LPDA = 0
 KIND_VPOL = 1
@@ -150,14 +156,14 @@ def analytic_vel_mix(zenith, azimuth, rot, kind):
     callers gather the (small) frequency templates ONCE instead of
     broadcasting them per element."""
     v_global = geometry.spherical_to_cartesian(zenith, azimuth)
-    v_ant = rot @ v_global
+    v_ant = _matmul(rot, v_global)
     theta_a, phi_a = geometry.cartesian_to_spherical(v_ant)
 
     d_theta, d_phi = _direction_factors(kind, theta_a, phi_a)
 
     B_out = geometry.onsky_basis(zenith, azimuth)
     B_ant = geometry.onsky_basis(theta_a, phi_a)
-    M = B_out @ rot.T @ B_ant.T
+    M = _matmul(_matmul(B_out, rot.T), B_ant.T)
 
     mix_theta = M[1, 1] * d_theta + M[1, 2] * d_phi
     mix_phi = M[2, 1] * d_theta + M[2, 2] * d_phi
@@ -186,7 +192,7 @@ def analytic_vel(zenith, azimuth, rot, templates, kind):
     """
     # direction in antenna frame
     v_global = geometry.spherical_to_cartesian(zenith, azimuth)
-    v_ant = rot @ v_global
+    v_ant = _matmul(rot, v_global)
     theta_a, phi_a = geometry.cartesian_to_spherical(v_ant)
 
     d_theta, d_phi = _direction_factors(kind, theta_a, phi_a)
@@ -195,7 +201,7 @@ def analytic_vel(zenith, azimuth, rot, templates, kind):
     # M = B(zen, az) @ rot^-1 @ B(theta_a, phi_a)^T   (antennapattern.py:1290-1307)
     B_out = geometry.onsky_basis(zenith, azimuth)          # rows eR,eT,eP (global)
     B_ant = geometry.onsky_basis(theta_a, phi_a)           # rows in antenna frame
-    M = B_out @ rot.T @ B_ant.T                            # rot is orthogonal: inv = T
+    M = _matmul(_matmul(B_out, rot.T), B_ant.T)                            # rot is orthogonal: inv = T
 
     mix_theta = M[1, 1] * d_theta + M[1, 2] * d_phi
     mix_phi = M[2, 1] * d_theta + M[2, 2] * d_phi
@@ -270,7 +276,7 @@ def table_vel_raw(table: AntennaTable, freqs, theta_a, phi_a):
 def table_vel(zenith, azimuth, rot, table: AntennaTable, freqs):
     """On-sky VEL from a tabulated pattern, including orientation rotation."""
     v_global = geometry.spherical_to_cartesian(zenith, azimuth)
-    v_ant = rot @ v_global
+    v_ant = _matmul(rot, v_global)
     theta_a, phi_a = geometry.cartesian_to_spherical(v_ant)
     # wrap phi into the grid's 2-pi window (the reference's +-2pi while
     # loops, antennapattern.py:1430-1434)
@@ -280,7 +286,7 @@ def table_vel(zenith, azimuth, rot, table: AntennaTable, freqs):
 
     B_out = geometry.onsky_basis(zenith, azimuth)
     B_ant = geometry.onsky_basis(theta_a, phi_a)
-    M = B_out @ rot.T @ B_ant.T
+    M = _matmul(_matmul(B_out, rot.T), B_ant.T)
     vel_theta = M[1, 1] * vt_raw + M[1, 2] * vp_raw
     vel_phi = M[2, 1] * vt_raw + M[2, 2] * vp_raw
     return vel_theta, vel_phi

@@ -8,7 +8,7 @@ ARZ PRD paper); the electric field is its (negative) time derivative, rotated
 into on-sky coordinates using the viewing angle relative to the shower
 maximum (get_time_trace:500-655).
 
-TPU-first integration scheme: the reference refines the profile integral with
+Fixed-shape integration scheme: the reference refines the profile integral with
 a data-dependent 100x interpolation wherever |tt| < 1 ns (ARZ.py:166-227).
 Here the integral is a fixed-shape sum: a coarse trapezoid over the full
 profile plus two dense windows (static width) centered on the two coarse grid
@@ -60,7 +60,7 @@ def theta_to_thetaprime(theta, xmax_m, R):
     (ARZ.py:299-315). ``xmax_m`` is the distance of shower max along the
     axis in metres (the library stores its depth grid pre-divided by RHO:
     column-depth values in internal units are ~1e40 and would overflow a
-    float32 constant on TPU)."""
+    float32 constant)."""
     return jnp.arctan2(R * jnp.sin(theta), R * jnp.cos(theta) - xmax_m)
 
 
@@ -185,7 +185,7 @@ class ShowerLibrary(NamedTuple):
 
     ``depth`` holds the grid as axis distance in METRES (column depth /
     RHO, converted at load time): raw column-depth values carry units.g
-    (~6e33) and overflow float32 on TPU; the distance representation is
+    (~6e33) and overflow float32; the distance representation is
     what every consumer uses anyway.
     """
 

@@ -121,8 +121,7 @@ _DISPATCH = {"SP1": _sp1, "GL1": _gl1, "GL2": _gl2, "GL3": _gl3, "MB1": _mb1}
 def inv_length_factored(z, frequencies, model: str):
     """1/L(z, f) on the outer product grid [**z.shape, F] with the z-only
     coefficients computed ONCE per z sample (the broadcast form recomputes
-    the temperature cubic and branch coefficients per frequency — measured
-    at ~30 ms/step of the fused pipeline at the bench shape).
+    the temperature cubic and branch coefficients per frequency).
 
     SP1 is exp-affine in w = ln f: 1/L = exp(a(z) + b(z) w); the other
     models fall back to the broadcast evaluation.

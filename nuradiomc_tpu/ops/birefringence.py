@@ -76,8 +76,8 @@ def _eigensystem_2x2(direction, nx, ny, nz):
     "eigenvectors" of the two modes stop being orthogonal, and the
     transpose-reconstruction in the path scan then AMPLIFIES by the
     non-orthogonality every segment: measured e^30..e^70 trace blowups
-    over ~250-segment paths in the gen2 workload (2026-08-20), on both
-    CPU-f32 and TPU, seeded differently by backend rounding. Here the
+    over ~250-segment paths in the gen2 workload at float32, seeded
+    differently by each backend's rounding. Here the
     anisotropy enters only through differences ``delta_i = B_i - mean(B)``
     (no large-term cancellation), and an O(ulp) angle error just
     mis-rotates by O(ulp) — the transform stays unitary by construction.
@@ -236,8 +236,8 @@ def propagate_pulse(spec_theta, spec_phi, path_xyz, frequencies,
         cc, ss, k1, k2, dt, valid = xs
         # phase computed IN-STEP from the scalar dt: precomputing it as a
         # scan input materializes a [paths, K, F] complex array when the
-        # pipeline vmaps over solutions (~10 GB for the gen2 workload —
-        # the reason G=512 exhausted HBM), vs K*F in-register sincos here
+        # pipeline vmaps over solutions (~10 GB for the gen2 workload at
+        # G=512), vs K*F in-register sincos here
         arg = (-2.0 * jnp.pi) * dt * ffr
         ph = jax.lax.complex(jnp.cos(arg), jnp.sin(arg))
         b0 = k1 * (cc * st + ss * sp)    # fast mode (n1)

@@ -41,9 +41,8 @@ def bandlimited_noise_spectrum(key, n_samples: int, sampling_rate: float,
 
     * "phase": the literal reference construction (one log + sqrt + two
       sincos per bin);
-    * "gaussian": two normal draws per bin (erfinv is a polynomial on the
-      TPU VPU — ~2-3x cheaper; the throughput choice for noisy
-      production). Bins whose phase is pinned real (DC/Nyquist,
+    * "gaussian": two normal draws per bin (erfinv is a polynomial: fewer
+      transcendentals than log + sqrt + sincos). Bins whose phase is pinned real (DC/Nyquist,
       add_random_phases:15-32) take the Rayleigh modulus |z1 + i z2|.
     """
     n_freqs = n_samples // 2 + 1

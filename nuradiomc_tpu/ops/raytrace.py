@@ -1,6 +1,6 @@
 """Batched analytic ray tracing in exponential ice (JAX).
 
-A TPU-first re-design of the reference analytic ray tracer
+A batch-first re-design of the reference analytic ray tracer
 (NuRadioMC/SignalProp/analyticraytracing.py). The reference solves, per
 (source, receiver) pair, for the parameter ``C_0`` of the closed-form ray path
 
@@ -810,8 +810,11 @@ def _sp1_attenuation_from_moments(m_lo, m_hi, frequencies, dtype):
         [_math.factorial(int(k)) for k in kk]), dtype)
     wk = jnp.power(w[None, :], jnp.asarray(kk, dtype)[:, None]) \
         * inv_fact[:, None]                               # [K+1, F]
-    expo_lo = jnp.exp(_SP1_BLO * w) * (m_lo @ wk)
-    expo_hi = jnp.exp(_SP1_BHI * w) * (m_hi @ wk)
+    # alternating-sign powers of log f cancel: the contraction needs full
+    # float32 products (a TF32 pass loses the Taylor tail)
+    hi = jax.lax.Precision.HIGHEST
+    expo_lo = jnp.exp(_SP1_BLO * w) * jnp.matmul(m_lo, wk, precision=hi)
+    expo_hi = jnp.exp(_SP1_BHI * w) * jnp.matmul(m_hi, wk, precision=hi)
     lo = frequencies < 1.0 * _units.GHz
     return jnp.exp(-jnp.where(lo, expo_lo, expo_hi))
 

@@ -27,10 +27,9 @@ def time_shift_phase_uniform(n_freqs: int, df, dt_shift, block: int = 32):
     Equivalent to ``time_shift_phase(k * df, dt)`` but built as the outer
     product of two small phase tables (k = block*a + b  =>
     w^k = (w^block)^a * w^b): ~(block + n/block) transcendental evaluations
-    per element of ``dt_shift`` instead of n_freqs. On TPU the per-bin
-    sin/cos chain of the full ramp is VPU-transcendental-bound (hundreds of
-    millions of sincos per pipeline step at production batch sizes); the
-    factored form replaces ~94% of them with 6-flop complex multiplies.
+    per element of ``dt_shift`` instead of n_freqs (hundreds of millions of
+    sincos per pipeline step at production batch sizes); the factored form
+    replaces ~94% of them with 6-flop complex multiplies.
     """
     real_dtype = jnp.asarray(dt_shift).dtype
     ctype = jnp.result_type(real_dtype, jnp.complex64)

@@ -32,8 +32,8 @@ def _sliding_window_any(x_bool, window: int):
     of the coincidence window.
 
     Implemented as log2(window) boolean shift-ORs (each pass touches 1-byte
-    bools) instead of an int32 cumsum — ~3x cheaper on TPU where these
-    windowed reductions are HBM-bandwidth bound.
+    bools) instead of an int32 cumsum: these windowed reductions are
+    memory-bandwidth bound.
     """
     out = x_bool
     covered = 1

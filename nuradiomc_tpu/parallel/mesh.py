@@ -1,7 +1,7 @@
 """Device mesh and sharding helpers.
 
 The reference scales by file splitting + cluster batch jobs
-(SURVEY.md 2.9; generator.py:88-199, utilities/runner.py). The TPU-native
+(SURVEY.md 2.9; generator.py:88-199, utilities/runner.py). The batch-first
 equivalent is SPMD over a `jax.sharding.Mesh`:
 
 * ``event`` axis — data parallelism over event groups (the physics MC's
@@ -35,7 +35,7 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     """Initialize multi-host JAX (jax.distributed.initialize wrapper).
 
     With no arguments, relies on the environment auto-detection that JAX
-    ships for TPU pods / SLURM / Open MPI. Safe to call twice (the second
+    ships for SLURM / Open MPI clusters. Safe to call twice (the second
     call is a no-op with a warning). Single-process setups can skip this
     entirely.
     """

@@ -19,7 +19,7 @@ Re-implements the reference LOFAR processing chain
 - :class:`beamformingDirectionFitter` — direction fit maximizing beamformed
   power (beamformingDirectionFitter_LOFAR.py:49-212); the Powell simplex is
   replaced by a vectorized coarse-to-fine grid scan (one jitted batch per
-  zoom level — TPU-friendly, no per-step host round trips).
+  zoom level — fixed-shape, no per-step host round trips).
 
 The TBB raw-data reader (io/LOFAR/_rawTBBio*) requires LOFAR station
 metadata files and is out of scope; these modules consume traces through the

@@ -8,7 +8,7 @@ Fresnel coefficients) to every antenna is FIXED; the fit parameters
 angle, the polarization, and the Askaryan amplitude.  The reference evaluates
 one parameter triple per scipy.optimize.brute step ("takes roughly 20
 minutes"); here the whole parameter grid is one vmapped, jitted batch —
-seconds on TPU/CPU for the same 1-degree x 0.1-dex scan.
+seconds on a GPU or CPU for the same 1-degree x 0.1-dex scan.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ that point.  Sampling this along the shower axis gives a longitudinal profile
 whose peak depth X_RIT correlates with X_max; sampling lateral planes and
 fitting the line through their maxima reconstructs the shower axis.
 
-TPU-native twist: the per-point time shifts for a whole batch of sample
+Batch-first twist: the per-point time shifts for a whole batch of sample
 points are computed as one (points, antennas) array; the reference loops
 point-by-point through a cached refractivity table.
 """

@@ -11,7 +11,7 @@ Host-side per-event wrappers mirroring the reference trigger modules'
 * analogToDigitalConverter.get_digital_trace equivalent
   (modules/analogToDigitalConverter.py:173-372)
 
-The batched TPU production path lives in sim/pipeline.py (ops/triggers.py,
+The batched production path lives in sim/pipeline.py (ops/triggers.py,
 ops/phased_array.py kernels); these wrappers serve the object-level module
 chain (event files, reconstruction studies, the reference's trigger_tests).
 """

@@ -4,7 +4,7 @@ Re-implementation of
 NuRadioReco/modules/neutrinoVertexReconstructor/neutrino2DVertexReconstructor.py
 (:16-500) and its lookup-table generator (create_lookup_table.py:1-107).
 
-TPU-native twist: the reference precomputes travel-time lookup tables with a
+Batch-first twist: the reference precomputes travel-time lookup tables with a
 double Python loop over the (r, z) grid (hours per table, shipped as pickles);
 here the table is ONE batched call into the vmapped analytic ray solver
 (ops/raytrace.find_solutions), so tables are built on the fly per antenna

@@ -14,7 +14,6 @@ out of scope (requires the external lepton propagator).
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 from nuradiomc_tpu.sim import cross_sections
@@ -141,6 +140,8 @@ def generate_vertex_positions(attributes, n_events, rnd=None):
 
 def write_events_to_hdf5(filename, data_sets: dict, attributes: dict):
     """Write the reference per-shower table format (generator.py:88-199)."""
+    import h5py
+
     with h5py.File(filename, "w") as f:
         for key, value in data_sets.items():
             value = np.asarray(value)
@@ -257,7 +258,7 @@ def generate_eventlist_cylinder(
 def _insert_lepton_secondaries(data, attributes, rnd):
     """Insert secondary showers from outgoing mu/tau of CC interactions.
 
-    TPU-native equivalent of the reference's PROPOSAL branch
+    Batched equivalent of the reference's PROPOSAL branch
     (generator.py:1282-1380 + EvtGen/NuRadioProposal.py): the charged lepton
     of a nu_mu/nu_tau CC event carries E_nu(1-y) from the vertex along the
     neutrino direction; its catastrophic losses (and the tau decay products,

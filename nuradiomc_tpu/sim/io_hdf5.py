@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import h5py
 import numpy as np
 
 
@@ -53,51 +52,94 @@ class EventInput:
         return len(self.shower_ids)
 
 
+def event_input(data_sets: dict, attributes: dict) -> EventInput:
+    """The in-memory input table from per-shower datasets and file-level
+    attributes: the tables ``evtgen`` returns, or what an input file holds
+    (simulation.py:1019-1057 semantics)."""
+    def get(key, default=None):
+        if key in data_sets:
+            return np.asarray(data_sets[key])
+        return default
+
+    n = len(data_sets["shower_ids"])
+    mode = attributes.get("simulation_mode", "neutrino")
+    mode = mode.decode() if isinstance(mode, bytes) else str(mode)
+    emitter = None
+    if mode == "emitter":
+        # emitter event lists carry emitter_* columns and usually no
+        # shower kinematics — synthesize neutral defaults for those
+        emitter = {k: np.asarray(v) for k, v in data_sets.items()
+                   if k.startswith("emitter_")}
+    amps = get("emitter_amplitudes", np.zeros(n))
+
+    def strings(key, default):
+        raw = get(key)
+        if raw is None:
+            return np.full(n, default, dtype="U8")
+        return np.array([s.decode() if isinstance(s, bytes) else s
+                         for s in raw])
+
+    return EventInput(
+        event_group_ids=get("event_group_ids"),
+        shower_ids=get("shower_ids"),
+        xx=get("xx"), yy=get("yy"), zz=get("zz"),
+        zeniths=get("zeniths", np.zeros(n)),
+        azimuths=get("azimuths", np.zeros(n)),
+        energies=get("energies", amps),
+        shower_energies=get("shower_energies", get("energies", amps)),
+        shower_type=strings("shower_type", "had"),
+        flavors=get("flavors", np.zeros(n, dtype=int)),
+        interaction_type=strings("interaction_type", "nc"),
+        inelasticity=get("inelasticity", np.ones(n)),
+        vertex_times=get("vertex_times", np.zeros(n)),
+        attrs=dict(attributes),
+        shower_realization_Alvarez2009=get("shower_realization_Alvarez2009"),
+        shower_realization_ARZ=get("shower_realization_ARZ"),
+        emitter=emitter,
+    )
+
+
+def read_input_tables(path: str):
+    """(per-shower datasets, file attributes) of an HDF5 input file."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: np.asarray(f[k]) for k in f.keys()}, dict(f.attrs)
+
+
 def read_input_hdf5(path: str) -> EventInput:
     """Load the full input file into memory (simulation.py:1019-1057)."""
-    with h5py.File(path, "r") as f:
-        def get(key, default=None):
-            if key in f:
-                return np.asarray(f[key])
-            return default
+    return event_input(*read_input_tables(path))
 
-        n = len(f["shower_ids"])
-        mode = f.attrs.get("simulation_mode", "neutrino")
-        mode = mode.decode() if isinstance(mode, bytes) else str(mode)
-        emitter = None
-        if mode == "emitter":
-            # emitter event lists carry emitter_* columns and usually no
-            # shower kinematics — synthesize neutral defaults for those
-            emitter = {k: np.asarray(f[k]) for k in f.keys()
-                       if k.startswith("emitter_")}
-        amps = get("emitter_amplitudes", np.zeros(n))
 
-        def strings(key, default):
-            raw = get(key)
-            if raw is None:
-                return np.full(n, default, dtype="U8")
-            return np.array([s.decode() if isinstance(s, bytes) else s
-                             for s in raw])
+# .npz copies of input files: readable with numpy alone (no h5py); file
+# attributes are stored under this key prefix
+_NPZ_ATTR = "attrs/"
 
-        return EventInput(
-            event_group_ids=get("event_group_ids"),
-            shower_ids=get("shower_ids"),
-            xx=get("xx"), yy=get("yy"), zz=get("zz"),
-            zeniths=get("zeniths", np.zeros(n)),
-            azimuths=get("azimuths", np.zeros(n)),
-            energies=get("energies", amps),
-            shower_energies=get("shower_energies",
-                                get("energies", amps)),
-            shower_type=strings("shower_type", "had"),
-            flavors=get("flavors", np.zeros(n, dtype=int)),
-            interaction_type=strings("interaction_type", "nc"),
-            inelasticity=get("inelasticity", np.ones(n)),
-            vertex_times=get("vertex_times", np.zeros(n)),
-            attrs=dict(f.attrs),
-            shower_realization_Alvarez2009=get("shower_realization_Alvarez2009"),
-            shower_realization_ARZ=get("shower_realization_ARZ"),
-            emitter=emitter,
-        )
+
+def _npz_array(value):
+    a = np.asarray(value)
+    if a.dtype.kind in "OS":      # h5py strings -> numpy unicode
+        a = np.array([s.decode() if isinstance(s, bytes) else str(s)
+                      for s in a.ravel()]).reshape(a.shape)
+    return a
+
+
+def write_input_npz(path: str, data_sets: dict, attributes: dict):
+    """Save an input table (datasets + attributes) as ``.npz``."""
+    arrays = {k: _npz_array(v) for k, v in data_sets.items()}
+    arrays.update({_NPZ_ATTR + k: _npz_array(v)
+                   for k, v in attributes.items()})
+    np.savez_compressed(path, **arrays)
+
+
+def read_input_npz(path: str) -> EventInput:
+    """Load an input table written by :func:`write_input_npz`."""
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files if not k.startswith(_NPZ_ATTR)}
+        attrs = {k[len(_NPZ_ATTR):]: z[k][()]
+                 for k in z.files if k.startswith(_NPZ_ATTR)}
+    return event_input(data, attrs)
 
 
 def group_showers(inp: EventInput):
@@ -120,6 +162,8 @@ def write_output_hdf5(path: str, inp: EventInput, results: dict, attrs: dict):
     simulation: at minimum 'triggered' [n_showers], 'weights' [n_showers],
     plus optional per-station datasets under results['station_<id>'].
     """
+    import h5py
+
     with h5py.File(path, "w") as f:
         for key in ("event_group_ids", "shower_ids", "xx", "yy", "zz",
                     "zeniths", "azimuths", "energies", "shower_energies",

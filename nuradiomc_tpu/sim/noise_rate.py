@@ -1,4 +1,4 @@
-"""Noise-trigger-rate estimation and threshold tuning (TPU-accelerated).
+"""Noise-trigger-rate estimation and threshold tuning (device-batched).
 
 Replaces the reference thermal-noise trigger-rate generators
 (NuRadioReco/utilities/noise.py:278-560, thermalNoiseGeneratorPhasedArray):
@@ -7,7 +7,7 @@ thresholds for a target noise-trigger rate (e.g. the 100 Hz point of the
 maximum windowed beam power over pure-noise traces. Where the reference
 generates noise traces one by one in numpy, here millions of noise windows
 run as one batched device computation — the distribution tail (1 Hz rates
-need ~1e7 trace-seconds) is reachable in seconds on a TPU chip.
+need ~1e7 trace-seconds) is reachable in one batched run.
 """
 
 from __future__ import annotations

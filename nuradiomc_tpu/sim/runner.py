@@ -3,7 +3,7 @@
 Replaces the reference batch model (utilities/runner.py:9-99
 NuRadioMCRunner — N worker processes each running a full simulation until a
 trigger-count/time budget is reached; cluster scaling via file splitting,
-documentation running_on_a_cluster.rst:8). On TPU the equivalent is:
+documentation running_on_a_cluster.rst:8). Here the equivalent is:
 
 * one process per host (one JAX client), the event axis sharded over the
   local mesh (parallel.mesh); multi-host via ``jax.distributed.initialize``;

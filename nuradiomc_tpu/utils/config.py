@@ -43,7 +43,7 @@ DEFAULT_CONFIG: dict = {
         "attenuation_model": "SP1",
         "attenuate_ice": True,
         "n_freq": 25,
-        # TPU-native solver tuning (not in the reference config): midpoint
+        # batch-solver tuning (not in the reference config): midpoint
         # steps of the attenuation integral and ray-solver iterations; None
         # keeps the PipelineSettings defaults (64 / 96)
         "attenuation_steps": None,

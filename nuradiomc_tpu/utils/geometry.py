@@ -50,13 +50,15 @@ def onsky_basis(zenith: jnp.ndarray, azimuth: jnp.ndarray) -> jnp.ndarray:
 def ground_to_onsky(v: jnp.ndarray, zenith: jnp.ndarray, azimuth: jnp.ndarray) -> jnp.ndarray:
     """Project cartesian vector(s) onto the on-sky basis -> (vR, vTheta, vPhi)."""
     basis = onsky_basis(zenith, azimuth)
-    return jnp.einsum("...ij,...j->...i", basis, v)
+    return jnp.einsum("...ij,...j->...i", basis, v,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def onsky_to_ground(v_onsky: jnp.ndarray, zenith: jnp.ndarray, azimuth: jnp.ndarray) -> jnp.ndarray:
     """Inverse of :func:`ground_to_onsky` (the basis is orthonormal)."""
     basis = onsky_basis(zenith, azimuth)
-    return jnp.einsum("...ji,...j->...i", basis, v_onsky)
+    return jnp.einsum("...ji,...j->...i", basis, v_onsky,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +95,7 @@ def _csqrt(x):
     """Complex sqrt defined on the principal branch (scimath.sqrt semantics).
 
     Promotes to the complex dtype matching the input precision (complex64 for
-    float32 inputs — the TPU path — and complex128 under x64).
+    float32 inputs and complex128 under x64).
     """
     x = jnp.asarray(x)
     if jnp.isrealobj(x):

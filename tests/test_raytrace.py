@@ -96,7 +96,7 @@ def test_attenuation_factors(golden, solutions):
 
 
 def test_f32_c0_accuracy(golden):
-    """The TPU (float32) path must agree with the reference to ~1e-5 relative."""
+    """The float32 path must agree with the reference to ~1e-5 relative."""
     ice = ice_models.southpole_simple
     x1 = jnp.asarray(golden["points"], dtype=jnp.float32)
     x2 = jnp.broadcast_to(jnp.asarray(golden["receiver"], dtype=jnp.float32), x1.shape)

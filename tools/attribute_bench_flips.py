@@ -1,14 +1,13 @@
-"""Attribute the chip-vs-CPU headline triggered-count delta to measured
-borderline trigger margins (VERDICT r4 weak #6).
+"""Attribute the device-vs-CPU headline decision flips to measured
+borderline trigger margins.
 
-bench.py tolerates |count_chip - count_cpu| <= 16 on the headline
-configuration with the ARGUMENT that TPU f32 rounding (fma contraction,
-transcendental implementations, MXU accumulation order) only flips
-knife-edge threshold crossings.  This tool closes the argument with data:
+bench.py bounds the per-group flips on the headline configuration with the
+ARGUMENT that device f32 rounding (fma contraction, transcendental
+implementations, matmul accumulation order) only flips knife-edge threshold
+crossings.  This tool closes the argument with data:
 
 1. per-group triggered DECISIONS from the EXACT bench configuration
-   (placement_impl='pallas', trigger_impl='pallas', band_limit_eps=1e-2)
-   on each backend — the groups where they differ are THE flips inside
+   (band_limit_eps=1e-2) on each backend — the groups where they differ are THE flips inside
    bench.py's tolerance;
 2. per-group high-low trigger MARGINS margin = (M - T)/T with
    M = max over 5-ns windows of min(window max V, -window min V)
@@ -21,9 +20,9 @@ bound) and that the closest NON-flipped group is far outside it.
 
 Usage (two processes — backend selection is process-wide):
 
-    timeout 580 python -u tools/attribute_bench_flips.py run /tmp/flips_chip.npz
-    python -u tools/attribute_bench_flips.py run /tmp/flips_cpu.npz --cpu
-    python tools/attribute_bench_flips.py compare /tmp/flips_chip.npz /tmp/flips_cpu.npz
+    python -u tools/attribute_bench_flips.py run flips_device.npz
+    python -u tools/attribute_bench_flips.py run flips_cpu.npz --cpu
+    python tools/attribute_bench_flips.py compare flips_device.npz flips_cpu.npz
 """
 import json
 import os
@@ -33,7 +32,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CHUNK = 8192          # margin pass keeps [CHUNK, C, n_base] traces in HBM
+CHUNK = 8192          # margin pass keeps [CHUNK, C, n_base] traces on device
 
 
 def run(out_path, cpu=False):
@@ -41,17 +40,16 @@ def run(out_path, cpu=False):
 
     if cpu:
         jax.config.update("jax_platforms", "cpu")
-    from bench import _enable_compilation_cache, _veff_settings_and_inputs
-    _enable_compilation_cache()
-
-    import dataclasses
+    from bench import _veff_settings_and_inputs
+    from nuradiomc_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
     from nuradiomc_tpu.sim.pipeline import simulate_batch
 
     # --- decisions: the EXACT headline bench configuration ----------------
-    settings, ch, batch = _veff_settings_and_inputs("pallas", "float32")
+    settings, ch, batch = _veff_settings_and_inputs()
     G = batch.energies.shape[0]
 
     @jax.jit
@@ -63,17 +61,15 @@ def run(out_path, cpu=False):
     print(f"decisions: {int(triggered.sum())} triggered / {G}", flush=True)
 
     # --- margins: trusted trace path (keep_traces disables band limiting
-    # and the fused kernels — IDENTICAL code path on both backends, so the
-    # cross-backend margin perturbation is pure backend rounding) ----------
-    settings_m = dataclasses.replace(settings, placement_impl="xla",
-                                     trigger_impl="xla")
+    # — IDENTICAL code path on both backends, so the cross-backend margin
+    # perturbation is pure backend rounding) -------------------------------
     thr = float(np.asarray(ch.threshold_high)[0])
     window_bins = max(int(round(settings.highlow_coincidence
                                 / (1.0 / settings.sampling_rate))), 1)
 
     @jax.jit
     def margin_chunk(b):
-        out = simulate_batch(b, ch, settings_m, keep_traces=True)
+        out = simulate_batch(b, ch, settings, keep_traces=True)
         tr = out.traces                              # [g, C, n_base]
         win_hi = jax.lax.reduce_window(
             tr, -jnp.inf, jax.lax.max, (1, 1, window_bins), (1, 1, 1),
@@ -120,14 +116,15 @@ def stability(out_path, cpu=True, scales=(1e-6, 3e-6, 1e-5)):
 
     if cpu:
         jax.config.update("jax_platforms", "cpu")
-    from bench import _enable_compilation_cache, _veff_settings_and_inputs
-    _enable_compilation_cache()
+    from bench import _veff_settings_and_inputs
+    from nuradiomc_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
     from nuradiomc_tpu.sim.pipeline import simulate_batch
 
-    settings, ch, batch = _veff_settings_and_inputs("pallas", "float32")
+    settings, ch, batch = _veff_settings_and_inputs()
 
     @jax.jit
     def probe(b, eps):

@@ -1,28 +1,20 @@
-"""Attribute the gen2 chip-vs-CPU station-count flips to measured
+"""Attribute the gen2 device-vs-CPU station-count flips to measured
 borderline trigger margins (companion to tools/attribute_bench_flips.py,
 which covers the headline mode; same two-population claim).
 
-RESOLVED: the first on-chip run of the gen2 conformance vector
-(2026-08-20 22:56) measured 23 of 256 group station-count flips against
-the CPU pin — far above the guessed bound of 8 — and this tool showed
-they were NOT knife-edges (flip margins up to |1.8|, NaN margins,
-cross-backend margin deltas up to inf): the f32-catastrophic
-birefringence eigenvector formula was amplifying e^30..e^70 on both
-backends (see ops/birefringence.py _eigensystem_2x2 for the fix and
-tests/test_birefringence.py::test_propagation_is_unitary_at_float32 for
-the regression). With the reconditioned eigenbasis the pin moved
-146 -> 63 of 256 and the chip matches the CPU pin with ZERO flips
-(samesol margin perturbation p99 0.16, min non-flip |margin| 0.009).
+A past use found a real bug this way: flips that were NOT knife-edges
+(margins up to |1.8|, NaN margins) came from an f32-catastrophic
+birefringence eigenvector formula (fixed in ops/birefringence.py
+_eigensystem_2x2, regression test
+tests/test_birefringence.py::test_propagation_is_unitary_at_float32).
 The tool measures:
 
 1. per-(group, station) triggered DECISIONS from the EXACT bench
-   configuration (placement_impl='pallas', trigger_impl='pallas') on
-   each backend;
+   configuration on each backend;
 2. per-(group, station) high-low MARGINS margin = (M - T)/T with
    M = max over 5-ns windows of min(window max V, -window min V)
    (tools/margin_audit.py definition) on the trusted keep_traces path
-   (band limiting + fused kernels disabled — identical code on both
-   backends), plus the per-station ray-solution-count fingerprint
+   (band limiting disabled — identical code on both backends), plus the per-station ray-solution-count fingerprint
    (shadow-boundary f32 bisection flips add/remove whole pulses).
 
 `compare` classifies every flipped (group, station) as a threshold
@@ -32,9 +24,9 @@ only the last is a real numerics bug.
 
 Usage (two processes — backend selection is process-wide):
 
-    timeout 580 python -u tools/attribute_gen2_flips.py run /tmp/gen2_chip.npz
-    python -u tools/attribute_gen2_flips.py run /tmp/gen2_cpu.npz --cpu
-    python tools/attribute_gen2_flips.py compare /tmp/gen2_chip.npz /tmp/gen2_cpu.npz
+    python -u tools/attribute_gen2_flips.py run gen2_device.npz
+    python -u tools/attribute_gen2_flips.py run gen2_cpu.npz --cpu
+    python tools/attribute_gen2_flips.py compare gen2_device.npz gen2_cpu.npz
 """
 import json
 import os
@@ -50,26 +42,22 @@ def run(out_path, cpu=False):
 
     if cpu:
         jax.config.update("jax_platforms", "cpu")
-    from bench import _enable_compilation_cache, _gen2_setup
-    _enable_compilation_cache()
-
-    import dataclasses
+    from bench import _gen2_setup
+    from nuradiomc_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
     from nuradiomc_tpu.sim.pipeline import simulate_batch
 
-    settings, chps, batch = _gen2_setup(256)
+    settings, chps, batch = _gen2_setup()
     G = batch.energies.shape[0]
     n_st = len(chps)
 
     # --- decisions: the exact bench probe configuration -------------------
-    settings_b = dataclasses.replace(settings, placement_impl="pallas",
-                                     trigger_impl="pallas")
-
     @jax.jit
     def probe(b):
-        return jnp.stack([simulate_batch(b, chp, settings_b).triggered
+        return jnp.stack([simulate_batch(b, chp, settings).triggered
                           .astype(jnp.int32) for chp in chps], axis=1)
 
     trig = np.asarray(probe(batch))                      # [G, n_st]
@@ -77,8 +65,6 @@ def run(out_path, cpu=False):
           flush=True)
 
     # --- margins + nsol fingerprint: trusted trace path -------------------
-    settings_m = dataclasses.replace(settings, placement_impl="xla",
-                                     trigger_impl="xla")
     window_bins = max(int(round(settings.highlow_coincidence
                                 / (1.0 / settings.sampling_rate))), 1)
 
@@ -86,7 +72,7 @@ def run(out_path, cpu=False):
     def margin_all(b):
         ms, ns = [], []
         for chp in chps:
-            out = simulate_batch(b, chp, settings_m, keep_traces=True)
+            out = simulate_batch(b, chp, settings, keep_traces=True)
             tr = out.traces                              # [g, C, n_base]
             win_hi = jax.lax.reduce_window(
                 tr, -jnp.inf, jax.lax.max, (1, 1, window_bins), (1, 1, 1),

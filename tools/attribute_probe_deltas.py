@@ -1,25 +1,19 @@
-"""Per-group chip-vs-CPU attribution for the PA-noiseless and raytrace
+"""Per-group device-vs-CPU attribution for the PA-noiseless and raytrace
 bench conformance probes (companion to tools/attribute_bench_flips.py,
 which covers the headline high-low mode with full margin dumps).
 
-Round-5 chip session observed:
-
-* pa_noiseless: chip 160 vs CPU-pinned 166 (IDENTICAL through the fused
-  Pallas kernel and the XLA path on-device — backend rounding, not a
-  Mosaic bug). The PA bench batch is the 3000-event e2e input TILED
-  ~5.5x to 16384 groups, so ONE borderline source event flips ~5-6
-  copies at once — the flip granularity is the tiling factor, which the
-  original +-3 tolerance ignored.
-* raytrace: chip 257005 vs 257079 solution masks over 262144 pairs
-  (0.03%) — f32 bisection-mask flips at the shadow boundary.
+The PA bench batch is the 3000-event e2e input TILED ~5.5x to 16384
+groups, so ONE borderline source event flips ~5-6 copies at once — the
+flip granularity is the tiling factor. Raytrace flips are f32
+bisection-mask flips at the shadow boundary.
 
 This tool dumps the per-group decisions / per-pair solution counts on
 each backend and reports how many SOURCE events (mod the tiling) differ,
 so the bench tolerances can assert at the right granularity.
 
-    timeout 580 python -u tools/attribute_probe_deltas.py run /tmp/probe_chip.npz
-    python -u tools/attribute_probe_deltas.py run /tmp/probe_cpu.npz --cpu
-    python tools/attribute_probe_deltas.py compare /tmp/probe_chip.npz /tmp/probe_cpu.npz
+    python -u tools/attribute_probe_deltas.py run probe_device.npz
+    python -u tools/attribute_probe_deltas.py run probe_cpu.npz --cpu
+    python tools/attribute_probe_deltas.py compare probe_device.npz probe_cpu.npz
 """
 import json
 import os
@@ -35,8 +29,9 @@ def run(out_path, cpu=False):
 
     if cpu:
         jax.config.update("jax_platforms", "cpu")
-    from bench import _enable_compilation_cache, _pa_setup
-    _enable_compilation_cache()
+    from bench import _pa_setup
+    from nuradiomc_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import dataclasses
 
@@ -47,7 +42,7 @@ def run(out_path, cpu=False):
     from nuradiomc_tpu.sim.pipeline import simulate_batch
 
     # --- pa_noiseless per-group decisions (the exact bench probe) ---------
-    settings, ch, batch, _ = _pa_setup(16384)
+    settings, ch, batch, _ = _pa_setup()
     settings = dataclasses.replace(settings, band_limit_eps=1e-3,
                                    add_noise=False)
 

@@ -1,246 +1,94 @@
-"""Pin the expected triggered counts for bench.py's conformance probe.
+"""Pin what bench.py's device-side conformance probes assert.
 
-Runs each deterministic bench configuration for ONE unperturbed step on the
-CPU backend (the trusted path: the same code the golden e2e tests validate
-against the reference) and prints the triggered counts to pin as
-``bench.EXPECTED_COUNTS``.  The on-chip bench then asserts its own
-single-step count equals the pinned value, turning every driver bench run
-into a chip-side Mosaic/XLA conformance probe (VERDICT r3 weak #2).
+Runs each deterministic bench cell (bench.workload) for ONE unperturbed
+step on the CPU backend — the trusted path: the same code the golden e2e
+tests validate against the reference — and either prints the triggered
+counts (bench.EXPECTED_COUNTS) or writes the per-group decision vectors
+(bench.VECTOR_PINS, tests/golden/bench_pins.npz):
 
-The phased-array value is PRNG-implementation dependent (hardware rbg bits
-differ between CPU and TPU), so bench.py only band-asserts that mode; the
-CPU value printed here is the band center.
+* veff_trig   [65536]  u8  — headline decisions
+* pa_nl_trig  [16384]  u8  — noiseless PA decisions (+ pa_g0, the tiling
+                             period: flips are counted per SOURCE event)
+* rt_nsol     [262144] u32 — solutions found per ray-trace pair
+* gen2_trig   [256]    u8  — stations triggered per composed-workload group
 
-Usage:  python tools/pin_bench_conformance.py [veff xla bf16 raytrace pa]
+Every vector run also prints its flips against the committed pins, so a
+re-pin states how many groups it moves.
+
+    python tools/pin_bench_conformance.py counts [cell ...]
+    python tools/pin_bench_conformance.py vectors [OUT.npz [CHUNK]]
 """
 
 import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import numpy as np
 
-import jax
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-
-def count_veff(placement_impl, matmul_dtype):
-    import jax.numpy as jnp
-
-    from bench import _veff_settings_and_inputs
-    from nuradiomc_tpu.sim.pipeline import simulate_batch
-
-    # the EXACT bench configuration (incl. trigger_impl + band_limit_eps)
-    settings, ch, batch = _veff_settings_and_inputs(placement_impl,
-                                                    matmul_dtype)
-
-    @jax.jit
-    def step(b):
-        out = simulate_batch(b, ch, settings)
-        return jnp.sum(out.triggered.astype(jnp.int32))
-
-    return int(step(batch))
+PIN_DTYPES = {"veff_trig": np.uint8, "pa_nl_trig": np.uint8,
+              "rt_nsol": np.uint32, "gen2_trig": np.uint8}
 
 
-def count_raytrace():
-    import jax.numpy as jnp
-    import numpy as np
+def decisions(cell, chunk=None):
+    """The CPU decision vector of one bench cell's unperturbed step,
+    evaluated ``chunk`` items at a time when given (every item's decision
+    is independent of the others; chunks bound the host memory)."""
+    import jax
 
-    from nuradiomc_tpu.models import ice as ice_models
-    from nuradiomc_tpu.ops import raytrace
+    import bench
 
-    ice = ice_models.southpole_simple
-    n_pairs = 262144
-    rng = np.random.default_rng(3)
-    rr = rng.triangular(50.0, 3000.0, 3000.0, n_pairs)
-    x1y = np.zeros(n_pairs, np.float32)
-    x1z = rng.uniform(-3000.0, 0.0, n_pairs).astype(np.float32)
-    x2y = rr.astype(np.float32)
-    x2z = np.full(n_pairs, -5.0, np.float32)
-
-    @jax.jit
-    def step(a, b, c, d):
-        sols = jax.vmap(lambda w, x, y, z: raytrace.find_solutions(
-            w, x, y, z, ice, n_bisect=28))(a, b, c, d)
-        return jnp.sum(sols.mask.astype(jnp.int32))
-
-    return int(step(x1y, x1z, x2y, x2z))
+    step, arg, n, _ = bench.workload(cell)
+    fn = bench.probe(step)
+    chunk = chunk or n
+    return np.concatenate([
+        np.asarray(fn(jax.tree.map(lambda a: a[i:i + chunk], arg)))
+        for i in range(0, n, chunk)])
 
 
-def count_pa(noiseless=False):
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from bench import _pa_setup
-    from nuradiomc_tpu.sim.pipeline import simulate_batch
-
-    settings, ch, batch, base_key = _pa_setup(16384)
-    # the EXACT bench configuration (band_limit_eps=1e-3, bench_pa)
-    settings = dataclasses.replace(settings, band_limit_eps=1e-3)
-    if noiseless:
-        settings = dataclasses.replace(settings, add_noise=False)
-
-        @jax.jit
-        def probe(b):
-            out = simulate_batch(b, ch, settings)
-            return jnp.sum(out.triggered.astype(jnp.int32))
-    else:
-        @jax.jit
-        def probe(b):
-            out = simulate_batch(b, ch, settings,
-                                 noise_key=jax.random.fold_in(base_key, 0))
-            return jnp.sum(out.triggered.astype(jnp.int32))
-
-    return int(probe(batch))
-
-
-def count_gen2(n_groups=512):
-    import jax.numpy as jnp
-
-    from bench import _gen2_setup
-    from nuradiomc_tpu.sim.pipeline import simulate_batch
-
-    settings, chps, batch = _gen2_setup(n_groups)
-
-    @jax.jit
-    def probe(b):
-        acc = jnp.int32(0)
-        for chp in chps:
-            out = simulate_batch(b, chp, settings)
-            acc = acc + jnp.sum(out.triggered.astype(jnp.int32))
-        return acc
-
-    return int(probe(batch))
-
-
-def write_vector_pins(out="tests/golden/bench_pins.npz"):
-    """Write the per-group CPU decision vectors bench.py's conformance
-    probes assert against (VERDICT r4 weak #6: count tolerances let a
-    physics bug hide behind offsetting flips; per-group vectors with a
-    measured flip-count bound cannot).
-
-    Vectors pinned (all computed on the CPU backend, the code path the
-    golden e2e tests validate against the reference):
-
-    * veff_trig   [65536] u8 — headline bench config decisions
-    * pa_nl_trig  [16384] u8 — noiseless PA decisions (+ pa_g0, the
-                   tiling period: flips are counted per SOURCE event)
-    * rt_nsol     [262144] u8 — solutions found per ray-trace pair
-    * gen2_trig   [512]  u8 — composed-workload decisions
-    """
-    import dataclasses
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bench import (_gen2_setup, _pa_setup, _veff_settings_and_inputs)
-    from nuradiomc_tpu.models import ice as ice_models
-    from nuradiomc_tpu.ops import raytrace
-    from nuradiomc_tpu.sim.pipeline import simulate_batch
+def write_vector_pins(out, chunk=None):
+    import bench
 
     pins = {}
-
-    settings, ch, batch = _veff_settings_and_inputs("pallas", "float32")
-    pins["veff_trig"] = np.asarray(jax.jit(
-        lambda b: simulate_batch(b, ch, settings).triggered
-        .astype(jnp.uint8))(batch))
-    print("veff:", int(pins["veff_trig"].sum()), flush=True)
-
-    settings, ch, batch, _ = _pa_setup(16384)
-    settings = dataclasses.replace(settings, band_limit_eps=1e-3,
-                                   add_noise=False)
-    pins["pa_nl_trig"] = np.asarray(jax.jit(
-        lambda b: simulate_batch(b, ch, settings).triggered
-        .astype(jnp.uint8))(batch))
-    # tiling period = source-event count (decisions are exactly periodic)
-    v = pins["pa_nl_trig"]
-    for p in range(1, len(v)):
-        if (v[p:] == v[:-p]).all():
-            pins["pa_g0"] = np.asarray(p)
-            break
-    print("pa_noiseless:", int(v.sum()), "g0:", int(pins["pa_g0"]),
-          flush=True)
-
-    ice = ice_models.southpole_simple
-    n_pairs = 262144
-    rng = np.random.default_rng(3)
-    rr = rng.triangular(50.0, 3000.0, 3000.0, n_pairs)
-    x1y = np.zeros(n_pairs, np.float32)
-    x1z = rng.uniform(-3000.0, 0.0, n_pairs).astype(np.float32)
-    x2y = rr.astype(np.float32)
-    x2z = np.full(n_pairs, -5.0, np.float32)
-    pins["rt_nsol"] = np.asarray(jax.jit(
-        lambda a, b, c, d: jnp.sum(jax.vmap(
-            lambda w, x, y, z: raytrace.find_solutions(
-                w, x, y, z, ice, n_bisect=28))(a, b, c, d)
-            .mask.astype(jnp.uint8), axis=-1))(x1y, x1z, x2y, x2z))
-    print("raytrace:", int(pins["rt_nsol"].astype(int).sum()), flush=True)
-
-    settings, chps, batch = _gen2_setup(512)
-    pins["gen2_trig"] = np.asarray(jax.jit(
-        lambda b: sum(simulate_batch(b, chp, settings).triggered
-                      .astype(jnp.uint8) for chp in chps)
-        .astype(jnp.uint8))(batch))
-    print("gen2:", int(pins["gen2_trig"].astype(int).sum()), flush=True)
-
+    for cell, (key, _, _) in bench.VECTOR_PINS.items():
+        vec = decisions(cell, chunk)
+        n_flips, max_delta = bench.count_flips(cell, vec)
+        print(json.dumps({"cell": cell, "sum": int(vec.sum()),
+                          "flips_vs_committed": n_flips,
+                          "max_delta": max_delta}), flush=True)
+        pins[key] = vec.astype(PIN_DTYPES[key])
+        if key == "pa_nl_trig":
+            # tiling period = source-event count (decisions are periodic)
+            for p in range(1, len(vec)):
+                if (vec[p:] == vec[:-p]).all():
+                    pins["pa_g0"] = np.asarray(p)
+                    break
     np.savez_compressed(out, **pins)
     print("wrote", out, flush=True)
 
 
 def main():
-    modes = sys.argv[1:] or ["veff", "xla", "bf16", "raytrace", "pa",
-                             "gen2"]
-    out = {}
-    for m in modes:
-        if m == "veff":
-            out["veff"] = count_veff("pallas", "float32")
-        elif m == "v3":
-            out["v3"] = count_veff("pallas_v3", "float32")
-        elif m == "xla":
-            out["xla"] = count_veff("xla", "float32")
-        elif m == "bf16":
-            out["bf16"] = count_veff("pallas", "bfloat16")
-        elif m == "raytrace":
-            out["raytrace"] = count_raytrace()
-        elif m == "pa":
-            out["pa"] = count_pa()
-        elif m == "pa_noiseless":
-            out["pa_noiseless"] = count_pa(noiseless=True)
-        elif m == "gen2":
-            out["gen2"] = count_gen2()
-        elif m == "vectors":
-            write_vector_pins()
-        elif m == "vectors_gen2":
-            # incremental: refresh ONLY the gen2 vector (e.g. after a
-            # group-count change), keeping the other pins untouched
-            import dataclasses
+    import jax
 
-            import jax.numpy as jnp
-            import numpy as np
+    jax.config.update("jax_platforms", "cpu")
+    from nuradiomc_tpu.utils import compile_cache
 
-            from bench import _gen2_setup, bench_gen2  # noqa: F401
-            from nuradiomc_tpu.sim.pipeline import simulate_batch
-            path = "tests/golden/bench_pins.npz"
-            pins = dict(np.load(path))
-            import inspect
-            src = inspect.getsource(bench_gen2)
-            n_groups = int(src.split("n_groups = ")[1].split("\n")[0])
-            settings, chps, batch = _gen2_setup(n_groups)
-            settings = dataclasses.replace(settings, placement_impl="pallas",
-                                           trigger_impl="pallas")
-            pins["gen2_trig"] = np.asarray(jax.jit(
-                lambda b: sum(simulate_batch(b, chp, settings).triggered
-                              .astype(jnp.uint8) for chp in chps)
-                .astype(jnp.uint8))(batch))
-            print("gen2:", int(pins["gen2_trig"].astype(int).sum()),
-                  "of", n_groups, flush=True)
-            np.savez_compressed(path, **pins)
-            print("wrote", path, flush=True)
-        print(json.dumps(out), flush=True)
+    compile_cache.enable()
+    what = sys.argv[1] if len(sys.argv) > 1 else "counts"
+    if what == "vectors":
+        write_vector_pins(
+            sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+                ROOT, "tests", "golden", "bench_pins.npz"),
+            int(sys.argv[3]) if len(sys.argv) > 3 else None)
+        return
+    import bench
+
+    cells = sys.argv[2:] or [c for c, (n, _) in bench.EXPECTED_COUNTS.items()
+                             if n is not None]
+    print(json.dumps({c: int(decisions(c).sum()) for c in cells}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
-"""Decompose the attenuation stage's chip cost by config ablation.
+"""Decompose the attenuation stage's device cost by config ablation.
 
-full-vs-noatt showed 16.6 ms (r4). This script varies the two knobs that
-scale the two halves of the stage independently:
+This script varies the two knobs that scale the two halves of the stage
+independently:
 
 * ``attenuation_steps`` (quadrature nodes) scales the SP1 moment
-  quadrature (transcendental-bound VPU work);
-* ``n_freq_attenuation`` scales the sparse grid width (the pallas
-  kernel's att-interp matmul and its input row).
+  quadrature (transcendental-bound elementwise work);
+* ``n_freq_attenuation`` scales the sparse grid width (the att-interp
+  matmul and its input row).
 
     python -u tools/profile_attenuation.py
 """
@@ -19,9 +19,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from bench import _enable_compilation_cache
+from nuradiomc_tpu.utils import compile_cache
 
-_enable_compilation_cache()
+compile_cache.enable()
 
 import jax
 import jax.numpy as jnp
@@ -60,8 +60,6 @@ def main():
     settings, ch, batch = _make_settings_and_inputs(
         n_groups=65536, n_showers=2, n_channels=1,
         n_internal=512, n_base=2048)
-    settings = dataclasses.replace(settings, placement_impl="pallas")
-
     variants = [
         ("baseline steps=8 nfreq=16", {}),
         ("noatt", {"attenuate_ice": False}),

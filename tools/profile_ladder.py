@@ -1,7 +1,7 @@
 """Cumulative stop-after ladder: attribute the REAL full step exactly.
 
-Round-4 lesson (docs/performance.md): isolated stage timings do not
-compose — XLA/Mosaic overlap DMA with compute and DCE output-only work,
+Isolated stage timings do not compose — XLA overlaps copies with
+compute and removes output-only work,
 so the only attribution that adds up is a ladder of truncated versions of
 the REAL bench program (PipelineSettings.stop_after), each keeping
 everything up to its anchor live and everything later dead. Successive
@@ -9,7 +9,7 @@ differences = the marginal cost of each stage IN CONTEXT.
 
 Measurement: all 14 programs (7 anchors x k in {1, 5}) are compiled/
 loaded up front (they hit the persistent executable cache), then timed
-in ROUND-ROBIN interLEAVED blocks so shared-chip drift hits every anchor
+in ROUND-ROBIN interleaved blocks so device drift hits every anchor
 equally; per-program minima are differenced. Anchors:
 ray -> spec -> attquad -> scalars -> placement -> filter -> full.
 
@@ -27,9 +27,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from bench import _enable_compilation_cache
+from nuradiomc_tpu.utils import compile_cache
 
-_enable_compilation_cache()
+compile_cache.enable()
 
 import jax
 import jax.numpy as jnp
@@ -38,8 +38,7 @@ from __graft_entry__ import _make_settings_and_inputs
 from nuradiomc_tpu.sim.pipeline import simulate_batch
 
 K_HI, K_LO = 5, 1
-ANCHORS = ["ray", "spec", "attquad", "scalars", "placeprep", "placement",
-           "filter", ""]
+ANCHORS = ["ray", "spec", "attquad", "scalars", "placement", "filter", ""]
 
 
 def main():
@@ -48,9 +47,7 @@ def main():
         n_groups=65536, n_showers=2, n_channels=1,
         n_internal=512, n_base=2048)
     eps = float(sys.argv[2]) if len(sys.argv) > 2 else 0.0
-    settings = dataclasses.replace(settings, placement_impl="pallas",
-                                   trigger_impl="pallas",
-                                   band_limit_eps=eps)
+    settings = dataclasses.replace(settings, band_limit_eps=eps)
 
     def make(s, k):
         def block(b):
